@@ -1,6 +1,6 @@
 import random
 
-from ffvvc_tpu.bitstream import (BitReader, BitWriter, split_annexb, write_nal,
+from ffvvc_jax.bitstream import (BitReader, BitWriter, split_annexb, write_nal,
                                  insert_epb, remove_epb, NalType)
 
 

@@ -1,6 +1,6 @@
 import random
 
-from ffvvc_tpu.cabac.engine import CabacDecoder, CabacEncoder, make_states, CTX
+from ffvvc_jax.cabac.engine import CabacDecoder, CabacEncoder, make_states, CTX
 
 
 def test_engine_roundtrip():

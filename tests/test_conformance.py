@@ -8,7 +8,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from conftest import oracle_decode, have_oracle
-from ffvvc_tpu.decoder import VVCDecoder
+from ffvvc_jax.decoder import VVCDecoder
 
 pytestmark = pytest.mark.skipif(not have_oracle(),
                                 reason="oracle not built")
@@ -331,7 +331,7 @@ def test_ph_collocated_ref_bug(tmp_path):
     We implement the spec; pin the reference's mis-decode so a fixed
     reference flips this test."""
     from forge import forge_inter_stream
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.config import DecoderConfig
     stream = forge_inter_stream(seed=0, nframes=3, slice_type=1,
                                 info_in_ph=True, deblock=False,
                                 sps_temporal_mvp_enabled_flag=1)
@@ -374,7 +374,7 @@ def test_l8_wpp_asymmetric_tiles_ref_bug(tmp_path):
     reference flips this test."""
     import subprocess
     from forge import forge_tiled_stream
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.config import DecoderConfig
     stream = forge_tiled_stream(seed=3, nframes=2, wpp=True, width=96,
                                 height=96, rows=(1, 2), cols=(1,))
     a = VVCDecoder().decode(stream)
@@ -525,8 +525,8 @@ def test_l15_wraparound_ref_bug(seed, slice_type, tools, tmp_path):
     (so the only divergence IS the wrap); (c) wrap on differs from the
     oracle — a fixed reference flips (c)."""
     from forge import forge_inter_stream
-    import ffvvc_tpu.ps as ps
-    from ffvvc_tpu.config import DecoderConfig
+    import ffvvc_jax.ps as ps
+    from ffvvc_jax.config import DecoderConfig
     stream = forge_inter_stream(
         seed=seed, slice_type=slice_type, nframes=3, width=64, height=64,
         deblock=True, sps_ref_wraparound_enabled_flag=1,
@@ -572,7 +572,7 @@ def test_l16_wpp_no_offsets_ref_bug(kw, tmp_path):
     but differs — a fixed reference flips the last assert."""
     import subprocess
     from forge import forge_inter_stream
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.config import DecoderConfig
     stream = forge_inter_stream(deblock=True,
                                 sps_entropy_coding_sync_enabled_flag=1, **kw)
     nat = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(stream))
@@ -677,7 +677,7 @@ def test_l18_mip_multi_tb_ref_bug(tmp_path):
     fixed reference flips the last assert."""
     import subprocess
     import forge as F
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.config import DecoderConfig
 
     class MipPolicy(F.FuzzPolicy):
         """Row-0 CTU: planar + random residual (noisy boundary).  Row-1
@@ -730,7 +730,7 @@ def test_l19_picture_hash_sei(tmp_path):
     against the stream-carried hash and raises on mismatch.  (The
     reference parses but never verifies it - h266_metadata.c.)"""
     from forge import forge_tools_stream, insert_picture_hashes
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.config import DecoderConfig
     stream = forge_tools_stream(seed=9, width=96, height=96, qp=30,
                                 bit_depth=10, nframes=2)
     yuvs = [f.to_yuv_bytes() for f in VVCDecoder().decode(stream)]
@@ -775,8 +775,8 @@ def test_l20_streaming_matches_whole(tmp_path):
     as the whole-stream call — DPB bumping order, the row-progress
     pipeline and the per-call pixel joins all interact here."""
     from forge import forge_hier_stream
-    from ffvvc_tpu.bitstream.au import split_access_unit_bytes
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.bitstream.au import split_access_unit_bytes
+    from ffvvc_jax.config import DecoderConfig
     s = forge_hier_stream(seed=4, width=96, height=64, qp=32, ngops=3,
                           deblock=True, sps_sao_enabled_flag=1,
                           sps_temporal_mvp_enabled_flag=1)

@@ -1,4 +1,4 @@
-"""Device (XLA/Pallas) filter passes must match the host golden bit-exactly.
+"""Device (XLA) filter passes must match the host golden bit-exactly.
 
 Runs on the CPU backend mesh-free; the same code path runs on a real chip.
 """
@@ -11,7 +11,7 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from ffvvc_tpu.sao import SaoFilter
+from ffvvc_jax.sao import SaoFilter
 
 
 def _fake_ctx(seed, W=96, H=64, ctb_log2=5, bit_depth=8, ntiles=1):
@@ -46,22 +46,20 @@ def _fake_ctx(seed, W=96, H=64, ctb_log2=5, bit_depth=8, ntiles=1):
     return sps, pps, tabs, fb
 
 
-@pytest.mark.parametrize("seed,pallas", [
-    (0, False), (1, False), (2, False), (3, False), (4, False),
-    (1, True), (3, True)])
-def test_sao_device_matches_host(seed, pallas):
-    from ffvvc_tpu.ops.sao_device import sao_frame_device
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_sao_device_matches_host(seed):
+    from ffvvc_jax.ops.sao_device import sao_frame_device
     sps, pps, tabs, fb = _fake_ctx(seed, ntiles=1 + (seed % 2))
     ref_fb = types.SimpleNamespace(planes=[p.copy() for p in fb.planes])
     SaoFilter(sps, pps, tabs, ref_fb).sao_frame()
-    sao_frame_device(sps, pps, tabs, fb, force_pallas=pallas)
+    sao_frame_device(sps, pps, tabs, fb)
     for c in range(3):
         assert np.array_equal(fb.planes[c], ref_fb.planes[c]), f"plane {c}"
 
 
 @pytest.mark.parametrize("seed", [7])
 def test_sao_device_10bit(seed):
-    from ffvvc_tpu.ops.sao_device import sao_frame_device
+    from ffvvc_jax.ops.sao_device import sao_frame_device
     sps, pps, tabs, fb = _fake_ctx(seed, bit_depth=10)
     ref_fb = types.SimpleNamespace(planes=[p.copy() for p in fb.planes])
     SaoFilter(sps, pps, tabs, ref_fb).sao_frame()
@@ -75,8 +73,8 @@ def test_device_sao_full_decode(oracle_path, tmp_path):
     import subprocess
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
     from forge import forge_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
 
     stream = forge_stream(level=1, seed=3, width=128, height=96, qp=30,
                           nframes=2)
@@ -97,8 +95,8 @@ def test_sao_sharded_matches_single_device():
     import jax
     import numpy as np
     from jax.sharding import Mesh
-    from ffvvc_tpu.parallel.mesh import build_sharded_sao
-    from ffvvc_tpu.ops.sao_device import _sao_xla, _rasterize_plane, SaoFilter
+    from ffvvc_jax.parallel.mesh import build_sharded_sao
+    from ffvvc_jax.ops.sao_device import _sao_xla, _rasterize_plane, SaoFilter
 
     sps, pps, tabs, fb = _fake_ctx(2, W=96, H=64)
     plane = fb.planes[0]
@@ -117,29 +115,22 @@ def test_sao_sharded_matches_single_device():
     assert np.array_equal(got, ref)
 
 
-@pytest.mark.parametrize("seed,tools,pallas", [
-    (2, dict(sps_alf_enabled_flag=1), False),
-    (2, dict(sps_alf_enabled_flag=1), True),
-    (3, dict(sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1), False),
-    (3, dict(sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1), True),
+@pytest.mark.parametrize("seed,tools", [
+    (2, dict(sps_alf_enabled_flag=1)),
+    (3, dict(sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1)),
     (3, dict(sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
-             sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1), False),
+             sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)),
 ])
-def test_alf_device_matches_host(seed, tools, pallas, monkeypatch):
+def test_alf_device_matches_host(seed, tools):
     """Device ALF/CC-ALF pass == host golden on real forged inter streams
     (the forged CTB flag/APS matrix exercises fixed + APS filters, alt
     chroma filters and CC-ALF idc)."""
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
-    import ffvvc_tpu.ops.alf_device as AD
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
 
     stream = forge_inter_stream(seed=seed, nframes=3, deblock=True, **tools)
     ref = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(stream))
-    if pallas:
-        import functools
-        monkeypatch.setattr(AD, "alf_frame_device", functools.partial(
-            AD.alf_frame_device, force_pallas=True))
     frames = VVCDecoder(DecoderConfig(device_alf=True)).decode(stream)
     dev = b"".join(f.to_yuv_bytes() for f in frames)
     assert dev == ref
@@ -149,8 +140,8 @@ def test_device_alf_full_decode(oracle_path, tmp_path):
     """End-to-end decode with device ALF enabled must match the oracle."""
     import subprocess
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
 
     stream = forge_inter_stream(seed=3, nframes=3, deblock=True,
                                 sps_sao_enabled_flag=1,
@@ -184,8 +175,8 @@ def test_device_deblock_matches_host(kw):
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(deblock=True, **kw)
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
     dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
@@ -198,8 +189,8 @@ def test_device_deblock_tiles():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_tiled_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_tiled_stream(seed=2, nframes=2, width=96, height=96,
                            rows=(2,), cols=(2,))
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
@@ -214,8 +205,8 @@ def test_device_deblock_ladf_fallback():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(seed=4, nframes=2, deblock=True,
                            sps_ladf_enabled_flag=1,
                            sps_num_ladf_intervals_minus2=1,
@@ -230,34 +221,23 @@ def test_device_deblock_ladf_fallback():
 
 @pytest.mark.parametrize("slice_type", [2, 0])
 def test_all_device_paths_end_to_end(slice_type):
-    """Everything the device can take at once — itx dispatch forced on,
-    device SAO + ALF/CC-ALF + deblock + batched MC + wavefront intra (on
-    the I-frames) — must equal the host decode byte-for-byte on a
-    full-tool stream."""
-    import os
+    """Everything the device can take at once — device SAO + ALF/CC-ALF +
+    deblock + LMCS + batched MC + wavefront intra (on the I-frames) — must
+    equal the host decode byte-for-byte on a full-tool stream."""
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(
         slice_type=slice_type, nframes=3, width=96, height=96, seed=7,
         deblock=True, bit_depth=10, sps_sao_enabled_flag=1,
         sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1,
         sps_lmcs_enabled_flag=1)
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
-    prev = os.environ.get("FFVVC_ITX")
-    os.environ["FFVVC_ITX"] = "device"
-    try:
-        dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(DecoderConfig(
-            device_sao=True, device_alf=True, device_deblock=True,
-            device_mc=True, device_lmcs=True,
-            device_intra=True)).decode(s))
-    finally:
-        if prev is None:
-            del os.environ["FFVVC_ITX"]
-        else:
-            os.environ["FFVVC_ITX"] = prev
+    dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(DecoderConfig(
+        device_sao=True, device_alf=True, device_deblock=True,
+        device_mc=True, device_lmcs=True, device_intra=True)).decode(s))
     assert host == dev
 
 
@@ -269,8 +249,8 @@ def test_device_pipeline_single_chip():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream, forge_hier_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     tools = dict(sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
                  sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
     for s in (forge_inter_stream(slice_type=2, nframes=3, width=96,
@@ -306,9 +286,9 @@ def test_fused_chain_formats(name, kw):
     vs the host decode across slice types / bit depths / chroma formats,
     and actually runs (stats.frames counts)."""
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
-    from ffvvc_tpu.ops import fused_device as fd
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
+    from ffvvc_jax.ops import fused_device as fd
     tools = dict(sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
                  sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
     s = forge_inter_stream(deblock=True, **tools, **kw)
@@ -325,9 +305,9 @@ def test_fused_chain_transfer_budget():
     int32 plane-set up (+ small params), one plane-set down per frame —
     the device-residency requirement (no per-stage round trips)."""
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
-    from ffvvc_tpu.ops import fused_device as fd
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
+    from ffvvc_jax.ops import fused_device as fd
     W = H = 96
     s = forge_inter_stream(slice_type=2, nframes=3, width=W, height=H,
                            seed=3, deblock=True, sps_sao_enabled_flag=1,
@@ -354,8 +334,8 @@ def test_row_pipeline_lmcs_domain():
     LMCS streams reach the row path (mono here), which is why round 4's
     suite missed it."""
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(slice_type=1, nframes=3, width=96, height=96,
                            seed=7, chroma=0, deblock=True,
                            sps_lmcs_enabled_flag=1, sps_sao_enabled_flag=1,
@@ -373,9 +353,9 @@ def test_fused_chain_fallback_paths():
     fall back to the host stages and stay byte-exact; eligible streams
     in the same decode still run fused."""
     from forge import forge_tiled_stream, forge_subpic_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
-    from ffvvc_tpu.ops import fused_device as fd
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
+    from ffvvc_jax.ops import fused_device as fd
     # across-disabled tiles: ineligible -> host fallback
     s = forge_tiled_stream(seed=2, nframes=2, width=96, height=96,
                            lf_across_tiles=0, lf_across_slices=0,
@@ -402,8 +382,8 @@ def test_all_device_toggles_compose():
     device configuration stays byte-exact on inter (DMVR/BDOF) and
     all-intra content."""
     from forge import forge_hier_stream, forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     cfg = DecoderConfig(device_pipeline=True, device_mc=True,
                         device_intra=True)
     for s in (forge_hier_stream(seed=2, width=96, height=64, qp=32,

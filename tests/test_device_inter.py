@@ -8,8 +8,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ffvvc_tpu.inter import InterPredictor
-from ffvvc_tpu.ops.inter_device import bdof_batch, dmvr_refine_batch
+from ffvvc_jax.inter import InterPredictor
+from ffvvc_jax.ops.inter_device import bdof_batch, dmvr_refine_batch
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -41,7 +41,7 @@ class _Frames:
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("size", [(16, 16), (16, 8), (8, 16), (8, 8)])
 def test_dmvr_refine_device_matches_golden(seed, size):
-    from ffvvc_tpu.mvs import MvField
+    from ffvvc_jax.mvs import MvField
     bw, bh = size
     rng = np.random.default_rng(seed * 10 + bw)
     B = 17

@@ -15,8 +15,8 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from conftest import have_oracle, oracle_decode
-from ffvvc_tpu.decoder import VVCDecoder
-from ffvvc_tpu.config import DecoderConfig
+from ffvvc_jax.decoder import VVCDecoder
+from ffvvc_jax.config import DecoderConfig
 
 
 def _decode(stream, **cfg):
@@ -107,7 +107,7 @@ def test_c_planner_engages_and_matches_python():
     byte-identical output to the round-4 Python planner across
     CCLM/MIP/ISP/MRL-bearing content."""
     import os
-    from ffvvc_tpu.ops import intra_device as idv
+    from ffvvc_jax.ops import intra_device as idv
     for case in ("tools10", "cclm_coll", "dualtree", "422"):
         s = _forge(case)
         os.environ["FFVVC_INTRA_PLANNER"] = "py"

@@ -13,7 +13,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 
 def _golden_put(plane, x, y, fx, fy, w, h, is_luma, bd):
-    from ffvvc_tpu.inter import InterPredictor
+    from ffvvc_jax.inter import InterPredictor
     ip = InterPredictor.__new__(InterPredictor)
     ip.bd = bd
     ip._mc_lib = None  # force the NumPy golden path
@@ -25,7 +25,7 @@ def _golden_put(plane, x, y, fx, fy, w, h, is_luma, bd):
 @pytest.mark.parametrize("is_luma", [True, False])
 @pytest.mark.parametrize("size", [(4, 4), (8, 16), (32, 8), (64, 64)])
 def test_mc_put_device_matches_golden(bd, is_luma, size):
-    from ffvvc_tpu.ops.mc_device import mc_put_batch
+    from ffvvc_jax.ops.mc_device import mc_put_batch
     rng = np.random.default_rng(hash((bd, is_luma, size)) & 0xFFFF)
     H, W = 96, 128
     plane = rng.integers(0, 1 << bd, (H, W)).astype(np.int32)
@@ -45,8 +45,8 @@ def test_mc_put_device_matches_golden(bd, is_luma, size):
 
 
 def test_mc_avg_uni_device():
-    from ffvvc_tpu.ops.mc_device import mc_avg_batch, mc_uni_batch
-    from ffvvc_tpu.inter import InterPredictor
+    from ffvvc_jax.ops.mc_device import mc_avg_batch, mc_uni_batch
+    from ffvvc_jax.inter import InterPredictor
     rng = np.random.default_rng(7)
     for bd in (8, 10):
         ip = InterPredictor.__new__(InterPredictor)
@@ -84,8 +84,8 @@ def test_decoder_device_mc(kw):
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(deblock=True, **kw)
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
     dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
@@ -100,8 +100,8 @@ def test_decoder_device_mc_dmvr_bdof():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_hier_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_hier_stream(seed=0, width=96, height=96, ngops=2, deblock=True,
                           sps_temporal_mvp_enabled_flag=1,
                           sps_bdof_enabled_flag=1, sps_dmvr_enabled_flag=1)
@@ -137,8 +137,8 @@ def test_decoder_device_mc_extended(name, kw):
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(deblock=True, **kw)
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
     dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
@@ -154,8 +154,8 @@ def test_decoder_device_mc_gpm(seed):
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(deblock=True, slice_type=0, nframes=3, width=96,
                            height=96, seed=seed, sps_gpm_enabled_flag=1,
                            sps_max_num_merge_cand_minus_max_num_gpm_cand=0,
@@ -191,8 +191,8 @@ def test_decoder_device_mc_affine(name, kw):
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_inter_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_inter_stream(deblock=True, **kw)
     host = b"".join(f.to_yuv_bytes() for f in VVCDecoder().decode(s))
     dev = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
@@ -206,8 +206,8 @@ def test_decoder_device_mc_dmvr_12bit():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_hier_stream
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     s = forge_hier_stream(seed=2, width=96, height=64, ngops=2,
                           deblock=True, bit_depth=12,
                           sps_temporal_mvp_enabled_flag=1,

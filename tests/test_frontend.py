@@ -10,11 +10,11 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from ffvvc_tpu.bitstream.au import split_access_units, split_access_unit_bytes
-from ffvvc_tpu.bitstream.mp4 import (annexb_to_mp4_sample,
+from ffvvc_jax.bitstream.au import split_access_units, split_access_unit_bytes
+from ffvvc_jax.bitstream.mp4 import (annexb_to_mp4_sample,
                                      mp4_sample_to_annexb, parse_vvcc,
                                      vvcc_extradata_to_annexb, write_vvcc)
-from ffvvc_tpu.bitstream.nal import NalType, split_annexb, is_vcl
+from ffvvc_jax.bitstream.nal import NalType, split_annexb, is_vcl
 
 
 def _stream(nframes=4, **kw):
@@ -33,8 +33,8 @@ def test_au_split_counts():
 
 
 def test_au_feed_packetwise_matches_whole_stream():
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     stream = _stream(nframes=3)
     whole = VVCDecoder(DecoderConfig()).decode(stream)
     dec = VVCDecoder(DecoderConfig())
@@ -58,8 +58,8 @@ def test_mp4_roundtrip():
 
 
 def test_mp4_decode_equivalence():
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
     stream = _stream(nframes=2)
     sample = annexb_to_mp4_sample(stream, 4)
     back = mp4_sample_to_annexb(sample, 4)
@@ -91,7 +91,7 @@ def test_malformed_mp4_sample():
 def test_au_split_poc_matches_structural():
     """POC-based AU detection (vvc_parser.c:199-331 semantics) agrees with
     the structural splitter on ordinary streams."""
-    from ffvvc_tpu.bitstream.au import split_access_units_poc
+    from ffvvc_jax.bitstream.au import split_access_units_poc
     for stream in (_stream(nframes=4),):
         a = [[n.raw for n in au] for au in split_access_units(stream)]
         b = [[n.raw for n in au] for au in split_access_units_poc(stream)]
@@ -104,7 +104,7 @@ def test_au_split_poc_hier_gop():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_hier_stream, forge_inter_stream
-    from ffvvc_tpu.bitstream.au import split_access_units_poc
+    from ffvvc_jax.bitstream.au import split_access_units_poc
     s = forge_hier_stream(seed=1, ngops=2)
     assert len(list(split_access_units_poc(s))) == 5
     s = forge_inter_stream(seed=2, nframes=3, slice_type=0)
@@ -112,9 +112,9 @@ def test_au_split_poc_hier_gop():
 
 
 def test_au_poc_packetwise_decode():
-    from ffvvc_tpu.decoder import VVCDecoder
-    from ffvvc_tpu.config import DecoderConfig
-    from ffvvc_tpu.bitstream.au import split_access_unit_bytes_poc
+    from ffvvc_jax.decoder import VVCDecoder
+    from ffvvc_jax.config import DecoderConfig
+    from ffvvc_jax.bitstream.au import split_access_unit_bytes_poc
     stream = _stream(nframes=3)
     whole = VVCDecoder(DecoderConfig()).decode(stream)
     dec = VVCDecoder(DecoderConfig())
@@ -132,8 +132,8 @@ def test_au_poc_multislice_no_ph_markers():
     import sys as _s, os as _o
     _s.path.insert(0, _o.path.join(_o.path.dirname(__file__), "..", "tools"))
     from forge import forge_rect_slice_stream
-    from ffvvc_tpu.bitstream.au import split_access_units_poc
-    from ffvvc_tpu.bitstream.nal import is_vcl
+    from ffvvc_jax.bitstream.au import split_access_units_poc
+    from ffvvc_jax.bitstream.nal import is_vcl
     s = forge_rect_slice_stream(seed=0, slice_type=2, nframes=2)
     aus = list(split_access_units_poc(s))
     assert len(aus) == 2

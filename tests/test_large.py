@@ -13,7 +13,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 from conftest import oracle_decode, have_oracle
-from ffvvc_tpu.decoder import VVCDecoder
+from ffvvc_jax.decoder import VVCDecoder
 
 W, H, QP, NFRAMES = 1920, 1080, 30, 2
 _KEY = hashlib.sha256(f"large:{W}x{H}:{NFRAMES}:{QP}".encode()).hexdigest()

@@ -1,6 +1,6 @@
 """Real decode on a multi-device mesh must equal single-device decode.
 
-The TPU-native replacement for the reference's threading determinism check
+The device-mesh counterpart of the reference's threading determinism check
 (CI decodes conformance streams with --threads 4 vs 1 and compares
 framecrcs, makefile.yml:20-21): here the same bitstream decodes on a
 (gop, tile) jax mesh — frames batched over "gop", CTU-row slabs over
@@ -13,8 +13,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from ffvvc_tpu.decoder import VVCDecoder
-from ffvvc_tpu.config import DecoderConfig
+from ffvvc_jax.decoder import VVCDecoder
+from ffvvc_jax.config import DecoderConfig
 
 FILTER_TOOLS = dict(sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
                     sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
@@ -74,7 +74,7 @@ def test_inter_only_defer_and_gop_depth():
     gop axis (the collective analogue of the reference's row-progress
     gating, vvc_thread.c:281-296)."""
     import forge as F
-    from ffvvc_tpu.parallel import filters as PF
+    from ffvvc_jax.parallel import filters as PF
 
     class InterOnly(F.FuzzPolicy):
         """No intra / CIIP CUs in inter frames -> residual-add defers."""
@@ -155,7 +155,7 @@ def test_mesh_sharded_mc():
     frame's MC runs on all devices, byte-exact, with per-bucket fallback
     for batches smaller than the axis."""
     from forge import forge_inter_stream, forge_hier_stream
-    from ffvvc_tpu.ops import mc_device
+    from ffvvc_jax.ops import mc_device
     # no chroma LMCS here: chroma residual scaling forces the Python MC
     # path (native_recon_ok gating), which has no device MC to shard
     for s in (forge_inter_stream(slice_type=0, nframes=4, width=96,

@@ -9,8 +9,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from ffvvc_tpu.decoder import VVCDecoder
-from ffvvc_tpu.config import DecoderConfig
+from ffvvc_jax.decoder import VVCDecoder
+from ffvvc_jax.config import DecoderConfig
 
 
 def _decode(stream, **cfg):

@@ -6,8 +6,8 @@ import os
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
-from ffvvc_tpu.config import DecoderConfig
-from ffvvc_tpu.decoder import VVCDecoder
+from ffvvc_jax.config import DecoderConfig
+from ffvvc_jax.decoder import VVCDecoder
 
 
 def _stream():

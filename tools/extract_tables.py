@@ -1,4 +1,4 @@
-"""Extract normative H.266 constant tables into ffvvc_tpu artifacts.
+"""Extract normative H.266 constant tables into ffvvc_jax artifacts.
 
 The tables extracted here are the *normative integer constants* of ITU-T
 H.266 (CABAC context initValue/shiftIdx tables of clause 9.3.2.2, transform
@@ -9,8 +9,8 @@ copies of these numbers; we pull them out of the reference tree's tables
 re-keying thousands of digits by hand. No code is taken — only the spec's
 numeric data, reshaped into numpy arrays.
 
-Run: python3 tools/extract_tables.py   (writes ffvvc_tpu/cabac/_ctx_tables.npz
-and ffvvc_tpu/ops/_data_tables.npz)
+Run: python3 tools/extract_tables.py   (writes ffvvc_jax/cabac/_ctx_tables.npz
+and ffvvc_jax/ops/_data_tables.npz)
 """
 import json
 import os
@@ -19,8 +19,8 @@ import re
 import numpy as np
 
 REF = "/root/reference/libavcodec"
-OUT_CTX = os.path.join(os.path.dirname(__file__), "..", "ffvvc_tpu", "cabac")
-OUT_OPS = os.path.join(os.path.dirname(__file__), "..", "ffvvc_tpu", "ops")
+OUT_CTX = os.path.join(os.path.dirname(__file__), "..", "ffvvc_jax", "cabac")
+OUT_OPS = os.path.join(os.path.dirname(__file__), "..", "ffvvc_jax", "ops")
 
 
 def strip_comments(text: str) -> str:
@@ -137,7 +137,7 @@ def extract_data():
         return arr
 
     # NOTE: DCT-2 / DST-7 / DCT-8 matrices are NOT extracted — they are
-    # generated in closed form in ffvvc_tpu/ops/data.py (8.7.4.3 kernels).
+    # generated in closed form in ffvvc_jax/ops/data.py (8.7.4.3 kernels).
     # LFNST: [4 sets][2 matrices] (8.7.4.2)
     grab("lfnst_8x8", r"const int8_t ff_vvc_lfnst_8x8\[4\]\[2\]\[16\]\[48\]",
          (4, 2, 16, 48), np.int8)

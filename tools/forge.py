@@ -3,32 +3,33 @@
 Since no conformance bitstreams ship with this environment, the forge plays
 the role of the JVET suite: each "level" exercises a growing toolset.  Every
 forged stream is decoded by the reference decoder (bit-exact oracle) and by
-ffvvc_tpu; outputs must match byte-for-byte.
+ffvvc_jax; outputs must match byte-for-byte.
 
 The forge drives the SAME bidirectional CTU syntax coder as the decoder
-(ffvvc_tpu.ctu.CtuCoder in encode mode), so encoder/decoder context
+(ffvvc_jax.ctu.CtuCoder in encode mode), so encoder/decoder context
 derivations agree by construction; the reference decoder then arbitrates
 spec correctness.
 """
 from __future__ import annotations
 
+import os
 import random
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ffvvc_tpu.bitstream import write_nal, NalType, BitReader, BitWriter
-from ffvvc_tpu.bitstream.h266 import SyntaxObj, H266ParamSets, read_sps, read_pps
-from ffvvc_tpu.bitstream.h266_write import (write_sps, write_pps,
+from ffvvc_jax.bitstream import write_nal, NalType, BitReader, BitWriter
+from ffvvc_jax.bitstream.h266 import SyntaxObj, H266ParamSets, read_sps, read_pps
+from ffvvc_jax.bitstream.h266_write import (write_sps, write_pps,
                                             write_slice_header, write_aps,
                                             write_picture_header)
-from ffvvc_tpu import ps as derived
-from ffvvc_tpu.cabac.engine import CabacEncoder, make_states
-from ffvvc_tpu.ctu import CtuCoder, FrameTabs, SPLIT_NONE, SINGLE_TREE, \
+from ffvvc_jax import ps as derived
+from ffvvc_jax.cabac.engine import CabacEncoder, make_states
+from ffvvc_jax.ctu import CtuCoder, FrameTabs, SPLIT_NONE, SINGLE_TREE, \
     MODE_TYPE_ALL, SAO_NOT_APPLIED
-from ffvvc_tpu.bitstream.h266 import SLICE_I, SLICE_P, SLICE_B
+from ffvvc_jax.bitstream.h266 import SLICE_I, SLICE_P, SLICE_B
 
 
 def build_sps(width, height, bit_depth=8, ctu_log2=5, min_qt_log2=5,
@@ -492,7 +493,7 @@ class ColFrameShim:
     get_mvf/rpl_at/poc interface as decoder.DecodedFrame."""
 
     def __init__(self, poc, tabs, rpl, ctb_log2):
-        from ffvvc_tpu.mvs import MvField
+        from ffvvc_jax.mvs import MvField
         self.poc = poc
         self.tabs = tabs
         self.rpl = rpl
@@ -884,8 +885,8 @@ def insert_picture_hashes(stream: bytes, yuvs, bit_depth: int) -> bytes:
     monochrome assumed when it divides evenly, else 4:4:4/4:2:2 by
     ratio).  Single-slice AUs assumed (forge output)."""
     import hashlib
-    from ffvvc_tpu.pipeline import _iter_units
-    from ffvvc_tpu.bitstream.nal import is_vcl
+    from ffvvc_jax.pipeline import _iter_units
+    from ffvvc_jax.bitstream.nal import is_vcl
 
     def sei_nal(yuv):
         n = len(yuv)

@@ -1,21 +1,23 @@
 """Drive the bitstream front-end end-to-end against the reference ffmpeg.
 
 Builds a minimal legal VVC Annex-B stream (SPS + PPS + IDR slice with
-PH-in-SH) through the public ffvvc_tpu.bitstream API, then:
+PH-in-SH) through the public ffvvc_jax.bitstream API, then:
   1. feeds it to the reference ffmpeg's trace_headers BSF (independent CBS
      parser) and checks the field values it logs;
   2. re-parses it with our readers and compares values.
 """
+import os
 import subprocess
 import sys
 
-from ffvvc_tpu.bitstream import write_nal, split_annexb, BitReader, NalType
-from ffvvc_tpu.bitstream.h266 import (SyntaxObj, H266ParamSets, read_sps,
+from ffvvc_jax.bitstream import write_nal, split_annexb, BitReader, NalType
+from ffvvc_jax.bitstream.h266 import (SyntaxObj, H266ParamSets, read_sps,
                                       read_pps, read_slice_header)
-from ffvvc_tpu.bitstream.h266_write import (write_sps, write_pps,
+from ffvvc_jax.bitstream.h266_write import (write_sps, write_pps,
                                             write_slice_header)
 
-FFMPEG = "/root/repo/.refbuild/ffmpeg"
+FFMPEG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".refbuild", "ffmpeg")
 
 
 def minimal_sps(width=64, height=64):
@@ -158,7 +160,7 @@ def main():
     assert sh2.sh_picture_header.ph_gdr_or_irap_pic_flag == 1
     # slice_data starts right after byte alignment
     assert nals[2].rbsp[sh2_pos_bytes(sh2, nals[2].rbsp):] [:4] == bytes([0x55, 0xAA, 0x12, 0x80])
-    print("ffvvc_tpu readers: all checked fields match")
+    print("ffvvc_jax readers: all checked fields match")
     print("VERIFY_HEADERS_OK")
 
 
